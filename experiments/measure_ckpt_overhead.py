@@ -1,12 +1,12 @@
-"""Measure in-flight checkpointing overhead at the flagship sweep scale
-(VERDICT r4 #8 stretch): the same run with and without ``ckpt_dir=``,
+"""Measure in-flight checkpointing overhead at the flagship sweep scale:
+the same run with and without ``ckpt_dir=``,
 warm-compiled, fresh checkpoint directory for the timed pass so every
 chunk's atomic npz write is included.
 
 Two surfaces, matching docs/OPERATIONS.md's preemption-safety table:
 - the flagship particle β-sweep (reference scale: 11 β × 3 runs, L=1000,
   N=500, T=20 — PARTICLE_solver_BIOLOGY_EXCLUSION_sweep_beta.py:1030-1034)
-  on the checkpoint-capable XLA slot engine, and
+  on the slot engine, and
 - the PDE β-ensemble (reference sweep scale, IMEX_PDE_solver_run_sweep.py)
   through ``run_pde_ensemble(ckpt_dir=)``.
 
@@ -16,7 +16,7 @@ previous chunk's write completes), so the expected overhead is the
 serialized fraction of (fetch + tmp-write + rename) that does not hide
 behind device execution.
 
-Prints one JSON line per surface; run on the real TPU:
+Prints one JSON line per surface; run on the GPU:
     python experiments/measure_ckpt_overhead.py [--small]
 """
 import os as _os
@@ -94,11 +94,8 @@ def measure_pde(small):
         if ckpt:
             ck = _os.path.join(base, "warm_ck" if warm else "timed_ck")
             shutil.rmtree(ck, ignore_errors=True)
-        # engine='xla' on BOTH passes: only the XLA path checkpoints, so an
-        # 'auto' straight pass would route fused and inflate the delta
         run_pde_ensemble(config, beta, gamma=0.2, lam=0.6, n_runs=n_runs,
-                         seed=0, n_tracers=config.n_tracers, engine="xla",
-                         ckpt_dir=ck)
+                         seed=0, n_tracers=config.n_tracers, ckpt_dir=ck)
 
     straight = _timed(lambda warm: run(False, warm))
     ckpt = _timed(lambda warm: run(True, warm))

@@ -1,5 +1,5 @@
 """Anchored binding/exit β-sweep — the reference's commented-out anchored
-configuration run end-to-end (VERDICT r1 #7).
+configuration run end-to-end.
 
 Reference: PARTICLE_solver_BIOLOGY_EXCLUSION_sweep_beta.py:845-856 (anchors
 (0.25, 0.60, 0.80), k_on=10, k_off=5, k_exit=5, minus_anchor,

@@ -44,9 +44,7 @@ if __name__ == "__main__":
     p.add_argument("--replot", action="store_true",
                    help="reload the npz checkpoint instead of re-running")
     p.add_argument("--engine", default="particle",
-                   choices=["particle", "lattice_gas", "pallas"],
-                   help="pallas = fused slot kernel on TPU (falls back to "
-                        "the XLA slot engine off-TPU)")
+                   choices=["particle", "lattice_gas"])
     p.add_argument("--n-runs", type=int, default=None)
     p.add_argument("--n-devices", type=int, default=None,
                    help="shard the (beta x runs) batch over this many "

@@ -61,7 +61,7 @@ if __name__ == "__main__":
     p.add_argument("--outdir", default="local_structure_out")
     p.add_argument("--replot", action="store_true")
     p.add_argument("--engine", default="particle",
-                   choices=["particle", "lattice_gas", "pallas"])
+                   choices=["particle", "lattice_gas"])
     p.add_argument("--n-devices", type=int, default=None)
     p.add_argument("--ckpt-dir", default=None,
                    help="mid-run checkpoint/resume dir (engine=lattice_gas)")

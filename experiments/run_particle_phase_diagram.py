@@ -1,6 +1,5 @@
-"""Microscopic (β × σ) phase diagram through the fused exclusion kernels —
-the particle-side companion of run_particle_phase_diagram's macroscopic twin,
-``run_pde_phase_diagram.py``.
+"""Microscopic (β × σ) phase diagram on the K-slot exclusion engine — the
+particle-side twin of the macroscopic ``run_pde_phase_diagram.py``.
 
 Beyond-reference science, second half: the reference only ever sweeps β at
 one kernel width (PARTICLE_solver_BIOLOGY_EXCLUSION_sweep_beta.py:828-1028)
@@ -13,15 +12,10 @@ The two boundaries agreeing within finite-N broadening is the
 hydrodynamic-limit claim itself, now read off a whole phase PLANE instead
 of the single-β cross-engine figure (run_cross_engine_validation.py).
 
-Engine: each σ is one `run_exclusion_sweep` program (σ is baked into the
-smoothing operator).  On the TPU `engine='auto'` routes the 64-replica
-batch through the replica-banked fused kernel with narrow rolled smoothing
-(ops/pallas_exclusion_rb.py — the round-5 production route for batched
-exclusion); σ values share Mosaic compilations through the ×8 radius
-bucketing, wide σ take the dense-matmul smoothing path, and σ=0 (the
+Engine: each σ is one vmapped `run_lattice_gas_k` program over the
+64-replica batch (σ is baked into the smoothing operator); σ=0 (the
 global-magnetization row, mean-field limit) runs without the smoothing
-operand entirely.  On CPU the same call falls back to the XLA slot engine
-(`--small` smoke).
+operator entirely.
 
 Physics read-outs per (β, σ), mirroring the PDE driver exactly:
 - order parameter |⟨m_global⟩_t| (abs of the late-window time mean,
@@ -37,7 +31,7 @@ Physics read-outs per (β, σ), mirroring the PDE driver exactly:
   unlike the noiseless PDE).
 
 Usage:
-  python experiments/run_particle_phase_diagram.py [--small] [--engine auto]
+  python experiments/run_particle_phase_diagram.py [--small]
   python experiments/run_particle_phase_diagram.py --replot  # from JSON
 """
 import os as _os
@@ -53,8 +47,8 @@ import numpy as np
 
 
 def run_grid(beta_values, sigma_values, n_seeds, *, L, N, K, T, obs_dt,
-             rate_diffusion, rate_active, engine, seed=0):
-    """One fused exclusion program per σ; σ <= 0 means global m.
+             rate_diffusion, rate_active, seed=0):
+    """One batched exclusion program per σ; σ <= 0 means global m.
 
     Returns (n_sigma, n_beta) grids of the late-window order parameter and
     band contrast.  Rates are the reference sweep's unscaled lattice rates
@@ -64,18 +58,13 @@ def run_grid(beta_values, sigma_values, n_seeds, *, L, N, K, T, obs_dt,
     import jax
 
     from hydrolim_tpu.core.config import ParticleConfig, auto_dt
+    from hydrolim_tpu.particles.lattice_gas_k import run_lattice_gas_k
     from hydrolim_tpu.sweeps.ensemble import broadcast_params
-    from hydrolim_tpu.sweeps.fast_exclusion import (
-        last_run_info,
-        run_exclusion_sweep,
-    )
 
     nb, ns = len(beta_values), n_seeds
     beta_max = float(np.max(beta_values))
     m_grid = np.zeros((len(sigma_values), nb))
     band_grid = np.zeros_like(m_grid)
-    agg_steps, agg_sec = 0, 0.0
-    engines_used = []
     for si, sigma in enumerate(sigma_values):
         config = ParticleConfig(
             L=L, xlim=1.0, init="fixed", N=N, scale_rates=False,
@@ -88,15 +77,12 @@ def run_grid(beta_values, sigma_values, n_seeds, *, L, N, K, T, obs_dt,
         nsteps = int(round(T / dt))
         key = jax.random.fold_in(jax.random.PRNGKey(seed), si)
         t0 = time.perf_counter()
-        frames, _slots = run_exclusion_sweep(
-            config, params, key, T=T, obs_dt=obs_dt, dt=dt, engine=engine,
-            record_fft=False, n_tracers=0)
+        frames, _slots = run_lattice_gas_k(
+            config, params, key, T=T, obs_dt=obs_dt, dt=dt,
+            record_fft=False)
         m_ts = np.asarray(frames.m_global)       # (B, M)
         rho_ts = np.asarray(frames.total)        # (B, M, L)
         wall = time.perf_counter() - t0
-        agg_steps += nb * ns * nsteps * N
-        agg_sec += wall
-        engines_used.append(last_run_info.get("engine"))
         M = m_ts.shape[1]
         late = np.arange(M) * obs_dt >= 0.6 * T
         m_abs = np.abs(m_ts[:, late].mean(axis=1))
@@ -105,16 +91,14 @@ def run_grid(beta_values, sigma_values, n_seeds, *, L, N, K, T, obs_dt,
         m_grid[si] = m_abs.reshape(nb, ns).mean(axis=1)
         band_grid[si] = band.reshape(nb, ns).mean(axis=1)
         print(f"# sigma={sigma:.4g}: {nb * ns} replicas x {nsteps} steps "
-              f"(dt={dt:.2e}, engine={engines_used[-1]}) in {wall:.1f}s",
+              f"(dt={dt:.2e}) in {wall:.1f}s",
               flush=True)
     return dict(beta=list(map(float, beta_values)),
                 sigma=list(map(float, sigma_values)), n_seeds=n_seeds,
                 L=L, N=N, K=K, T=T, obs_dt=obs_dt,
                 rate_diffusion=rate_diffusion, rate_active=rate_active,
-                engine=engine, engines_used=engines_used,
                 m=m_grid.tolist(), band=band_grid.tolist(),
-                replicas=len(sigma_values) * nb * n_seeds,
-                aggregate_particle_steps_per_s=agg_steps / max(agg_sec, 1e-9))
+                replicas=len(sigma_values) * nb * n_seeds)
 
 
 def crossing_curve(beta, m_rows, level=0.5):
@@ -194,8 +178,7 @@ def plot_grid(data, outdir=".", pde_json=None):
     fig.suptitle(
         f"Particle (β × σ) phase diagram — {data['replicas']} replicas, "
         f"L={data['L']}, N={data['N']}, K={data['K']}, T={data['T']} "
-        f"(window [{0.6 * data['T']:.0f},{data['T']:.0f}]), fused exclusion "
-        f"kernels", fontsize=10)
+        f"(window [{0.6 * data['T']:.0f},{data['T']:.0f}])", fontsize=10)
     fig.tight_layout()
     path = _os.path.join(outdir, "particle_phase_diagram.png")
     fig.savefig(path, dpi=150)
@@ -228,8 +211,6 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true",
                     help="CPU smoke: 6 beta x 3 sigma x 1 seed, L=128")
-    ap.add_argument("--engine", default="auto",
-                    choices=["auto", "pallas", "pallas_rb", "xla"])
     ap.add_argument("--outdir", default=".")
     ap.add_argument("--pde-json", default=None,
                     help="pde_phase_diagram.json for the boundary overlay "
@@ -254,8 +235,7 @@ def main():
     if args.small:
         data = run_grid(np.linspace(0, 3, 6), [0.02, 0.1, 0.0], 1,
                         L=128, N=96, K=3, T=6.0, obs_dt=0.5,
-                        rate_diffusion=0.02, rate_active=5.0,
-                        engine=args.engine)
+                        rate_diffusion=0.02, rate_active=5.0)
     else:
         # σ grid matches run_pde_phase_diagram exactly (so the boundary
         # overlay shares rows); σ=0 is the global-m mean-field row (the
@@ -263,11 +243,7 @@ def main():
         sigmas = list(np.geomspace(0.002, 2.0, 15)) + [0.0]
         data = run_grid(np.linspace(0, 3, 32), sigmas, 2,
                         L=1000, N=1500, K=3, T=20.0, obs_dt=0.25,
-                        rate_diffusion=0.02, rate_active=5.0,
-                        engine=args.engine)
-    print(f"# aggregate exclusion throughput: "
-          f"{data['aggregate_particle_steps_per_s']:.3e} particle-steps/s "
-          f"over {data['replicas']} replicas")
+                        rate_diffusion=0.02, rate_active=5.0)
     with open(jpath, "w") as f:
         json.dump(data, f)
     plot_grid(data, args.outdir, pde_json=pde_json)

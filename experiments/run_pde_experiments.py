@@ -26,7 +26,7 @@ from hydrolim_tpu.sweeps.pde_sweeps import (
 
 
 def main(which: str, small: bool = False, outdir: str = "pde_out",
-         engine: str = "xla", n_devices: int = None,
+         n_devices: int = None,
          ckpt_dir: str = None):
     if which == "single":
         kw = dict(L=128, T=2.0, dt=1e-3) if small else {}
@@ -39,11 +39,11 @@ def main(which: str, small: bool = False, outdir: str = "pde_out",
         if small:
             r = pde_beta_sweep(np.linspace(0, 3, 4), n_runs=2, T=6.0,
                                t_min=4.0, t_max=6.0, L=128, dt=1e-3,
-                               n_tracers=200, outdir=outdir, engine=engine,
+                               n_tracers=200, outdir=outdir,
                                n_devices=n_devices, ckpt_dir=ckpt_dir)
         else:
-            r = pde_beta_sweep(outdir=outdir, engine=engine,
-                               n_devices=n_devices, ckpt_dir=ckpt_dir)
+            r = pde_beta_sweep(outdir=outdir, n_devices=n_devices,
+                               ckpt_dir=ckpt_dir)
         print("v(beta):", np.round(r["v_mean"], 4))
         print("D(beta):", np.round(r["D_mean"], 4))
         return r
@@ -52,8 +52,8 @@ def main(which: str, small: bool = False, outdir: str = "pde_out",
                   kernel_sigma_values=[0.005, 0.05, 1.0], n_runs=2) \
             if small else {}
         r = pde_kernel_sigma_sweep(variant=which, outdir=outdir,
-                                   engine=engine, n_devices=n_devices,
-                                   ckpt_dir=ckpt_dir, **kw)
+                                   n_devices=n_devices, ckpt_dir=ckpt_dir,
+                                   **kw)
         print("final |m| per sigma:",
               {s: float(np.mean(v[:, -1])) for s, v in r["m"].items()})
         return r
@@ -65,17 +65,12 @@ if __name__ == "__main__":
     p.add_argument("which", choices=["single", "beta", "magn", "magn2"])
     p.add_argument("--small", action="store_true")
     p.add_argument("--outdir", default="pde_out")
-    p.add_argument("--engine", default="xla",
-                   choices=["xla", "auto", "pallas"],
-                   help="pallas/auto = fused multi-step IMEX kernel on TPU "
-                        "(sweeps only; 'single' keeps the XLA facade for "
-                        "full spectra/snapshot output)")
     p.add_argument("--n-devices", type=int, default=None,
                    help="shard the (beta x runs) batch over this many "
-                        "devices (XLA engine; 'sweep'-axis DP)")
+                        "devices ('sweep'-axis DP)")
     p.add_argument("--ckpt-dir", default=None,
-                   help="mid-run checkpoint/resume dir (XLA engine; "
-                        "composes with --n-devices)")
+                   help="mid-run checkpoint/resume dir (composes with "
+                        "--n-devices)")
     a = p.parse_args()
-    main(a.which, a.small, a.outdir, engine=a.engine,
+    main(a.which, a.small, a.outdir,
          n_devices=a.n_devices, ckpt_dir=a.ckpt_dir)

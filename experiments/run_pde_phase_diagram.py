@@ -1,13 +1,12 @@
-"""Dense (β × σ) PDE phase diagram through the fused engine (VERDICT r4 #3).
+"""Dense (β × σ) PDE phase diagram through the batched PDE ensemble.
 
 Beyond-reference science: the reference only ever sweeps β at fixed kernel
 width (IMEX_PDE_solver_run_sweep.py:26-40) or σ at a couple of β
 (IMEX_PDE_solver_run_sweep_magn*.py).  This driver maps the full
 (interaction strength β × interaction range σ) plane — 32 β × 16 σ × 2
 seeds = 1024 replicas at reference per-replica scale (L=1000, dt=5e-4) —
-the batch regime one chip holds, where the fused Pallas PDE kernel
-(ops/pallas_pde.py) amortizes its launch overhead and the reference's
-serial scipy loop is most thoroughly beaten.
+the batch regime one device holds, where the vmapped solve amortizes its
+per-step launch overhead over the whole σ row.
 
 Physics read-outs per (β, σ):
 - order parameter |⟨m⟩_t| (abs of the late-window time mean) — the flocking
@@ -17,13 +16,11 @@ Physics read-outs per (β, σ):
   (traveling bands form for NARROW kernels in the ordered phase; the
   quasi-global kernel stays spatially uniform).
 
-Each σ is one fused-kernel program of B = 32 β × n_seeds replicas (σ is
-baked into the smoothing operator, so it cannot vary inside a program);
-σ values share Mosaic compilations through the narrow-radius ×16
-bucketing (pde/fast_solve._m_mode).
+Each σ is one vmapped program of B = 32 β × n_seeds replicas (σ is
+baked into the smoothing operator, so it cannot vary inside a program).
 
 Usage:
-  python experiments/run_pde_phase_diagram.py [--small] [--engine auto]
+  python experiments/run_pde_phase_diagram.py [--small]
   python experiments/run_pde_phase_diagram.py --replot   # from saved JSON
 """
 import os as _os
@@ -39,8 +36,8 @@ import numpy as np
 
 
 def run_grid(beta_values, sigma_values, n_seeds, *, L, T, dt, gamma, lam,
-             n_tracers, engine, seed=0):
-    """One fused program per σ; returns dict of (n_sigma, n_beta) grids."""
+             n_tracers, seed=0):
+    """One batched program per σ; returns dict of (n_sigma, n_beta) grids."""
     from hydrolim_tpu.core.config import PDEConfig
     from hydrolim_tpu.sweeps.pde_sweeps import run_pde_ensemble
 
@@ -51,7 +48,6 @@ def run_grid(beta_values, sigma_values, n_seeds, *, L, T, dt, gamma, lam,
     m_grid = np.zeros((len(sigma_values), nb))
     band_grid = np.zeros_like(m_grid)
     v_grid = np.zeros_like(m_grid)
-    agg_steps, agg_sec = 0, 0.0
     for si, sigma in enumerate(sigma_values):
         config = PDEConfig(L=L, T=T, dt=dt, bc="periodic",
                            active_model="bidirectional",
@@ -61,11 +57,9 @@ def run_grid(beta_values, sigma_values, n_seeds, *, L, T, dt, gamma, lam,
         t0 = time.perf_counter()
         res, _ = run_pde_ensemble(config, beta_values, gamma=gamma, lam=lam,
                                   n_runs=ns, seed=seed + si,
-                                  n_tracers=n_tracers, engine=engine,
+                                  n_tracers=n_tracers,
                                   fetch_snapshots=False)
         wall = time.perf_counter() - t0
-        agg_steps += nb * ns * nsteps
-        agg_sec += wall
         m_ts = np.asarray(res.records.m_mean)[:, :nsteps + 1]
         v_ts = np.asarray(res.records.v_eff)[:, :nsteps + 1]
         rho = np.asarray(res.rho_p) + np.asarray(res.rho_m)   # (B, L) final
@@ -81,11 +75,10 @@ def run_grid(beta_values, sigma_values, n_seeds, *, L, T, dt, gamma, lam,
               f"in {wall:.1f}s", flush=True)
     return dict(beta=list(map(float, beta_values)),
                 sigma=list(map(float, sigma_values)), n_seeds=n_seeds,
-                L=L, T=T, dt=dt, gamma=gamma, lam=lam, engine=engine,
+                L=L, T=T, dt=dt, gamma=gamma, lam=lam,
                 m=m_grid.tolist(), band=band_grid.tolist(),
                 v=v_grid.tolist(),
-                replicas=len(sigma_values) * nb * n_seeds,
-                aggregate_replica_steps_per_s=agg_steps / max(agg_sec, 1e-9))
+                replicas=len(sigma_values) * nb * n_seeds)
 
 
 def plot_grid(data, outdir="."):
@@ -114,7 +107,7 @@ def plot_grid(data, outdir="."):
     fig.suptitle(
         f"PDE (β × σ) phase diagram — {data['replicas']} replicas, "
         f"L={data['L']}, T={data['T']} (window [{0.6 * data['T']:.0f},"
-        f"{data['T']:.0f}]), fused engine", fontsize=10)
+        f"{data['T']:.0f}])", fontsize=10)
     fig.tight_layout()
     path = _os.path.join(outdir, "pde_phase_diagram.png")
     fig.savefig(path, dpi=150)
@@ -147,8 +140,6 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true",
                     help="CPU smoke: 6 beta x 3 sigma x 1 seed, L=128")
-    ap.add_argument("--engine", default="auto",
-                    choices=["auto", "pallas", "xla"])
     ap.add_argument("--outdir", default=".")
     ap.add_argument("--replot", action="store_true",
                     help="redraw the figure from the saved JSON")
@@ -163,17 +154,14 @@ def main():
     if args.small:
         data = run_grid(np.linspace(0, 3, 6), [0.02, 0.2, 9e4], 1,
                         L=128, T=0.5, dt=1e-3, gamma=0.2, lam=0.6,
-                        n_tracers=16, engine=args.engine)
+                        n_tracers=16)
     else:
         # sigma from ~2 grid sites (narrow rolls) through matmul smoothing
         # to the reference's quasi-global sentinel (exact global mean)
         sigmas = list(np.geomspace(0.002, 2.0, 15)) + [1e5 - 10]
         data = run_grid(np.linspace(0, 3, 32), sigmas, 2,
                         L=1000, T=10.0, dt=5e-4, gamma=0.2, lam=0.6,
-                        n_tracers=64, engine=args.engine)
-    print(f"# aggregate fused throughput: "
-          f"{data['aggregate_replica_steps_per_s']:.3e} replica-steps/s "
-          f"over {data['replicas']} replicas")
+                        n_tracers=64)
     with open(jpath, "w") as f:
         json.dump(data, f)
     plot_grid(data, args.outdir)

@@ -35,8 +35,6 @@ _COMMANDS = {
     "particle-phase-diagram": ("run_particle_phase_diagram",
                                "(β, σ) particle phase plane + "
                                "micro↔macro boundary overlay"),
-    "profile-kernels": ("profile_exclusion_kernels",
-                        "exclusion-engine ablation profiler (TPU)"),
     "ckpt-overhead": ("measure_ckpt_overhead",
                       "checkpointing wall-time overhead"),
 }

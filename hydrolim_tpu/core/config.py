@@ -5,7 +5,7 @@
 mirrors ``IMEXPDE.__init__`` (/root/reference/IMEX_PDE_solver_class.py:13-29,
 14 kwargs), with the same names and defaults.
 
-TPU-first split: everything that changes compiled code shape (lattice size,
+Static/traced split: everything that changes compiled code shape (lattice size,
 boundary conditions, feature flags, buffer sizes) is *static* and lives in the
 frozen config; everything that can vary per sweep point without recompiling
 (β, rates, binding constants) lives in the ``*Params`` pytrees so sweeps can
@@ -24,6 +24,21 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+#: ``engine=`` values of the particle surfaces (facade and sweep drivers)
+PARTICLE_ENGINES = ("particle", "lattice_gas")
+#: ``engine=`` values of the PDE surfaces
+PDE_ENGINES = ("xla",)
+
+
+def check_engine(engine: str, engines: Tuple[str, ...]) -> str:
+    """``engine`` if it is one of ``engines``; a ValueError naming them
+    otherwise (an unknown name is never rerouted to another engine)."""
+    if engine not in engines:
+        raise ValueError(f"unknown engine {engine!r}; the engines are "
+                         + ", ".join(repr(e) for e in engines))
+    return engine
+
+
 # ---------------------------------------------------------------------------
 # Particle engine
 # ---------------------------------------------------------------------------
@@ -33,7 +48,7 @@ class ParticleConfig:
     """Static configuration of the microscopic particle engine.
 
     Field names/defaults follow the reference ctor
-    (PARTICLE_solver_CLASS.py:14-40).  ``site_capacity=None`` (TPU extension)
+    (PARTICLE_solver_CLASS.py:14-40).  ``site_capacity=None`` (extension)
     disables exclusion entirely — the conflict-resolution pass is skipped and
     the stepper takes the fast mean-field path used by the throughput
     benchmark.
@@ -66,7 +81,7 @@ class ParticleConfig:
     # model, needed for the micro↔macro v=λ·tanh(βm_β) validation
     # (plot_figs.py).
     active_model: str = "plus_forward"
-    # --- TPU-native additions -------------------------------------------------
+    # --- additions beyond the reference -----------------------------------------
     dt: Optional[float] = None               # None -> auto from rate bound
     max_event_prob: float = 0.10             # tau-leap bias knob: max R_i*dt
     n_pad: Optional[int] = None              # particle buffer size (>= N)
@@ -184,7 +199,7 @@ def auto_dt(config: ParticleConfig, params: ParticleParams,
         import jax.numpy as jnp
 
         # probe over the batch's ACTUAL β values, not just the maximum
-        # (ADVICE r3): a custom rate maximized at a smaller β (e.g. one
+        #: a custom rate maximized at a smaller β (e.g. one
         # decreasing in β) would otherwise be under-bounded, making dt too
         # large for the low-β replicas
         betas = np.unique(np.abs(np.asarray(params.beta, np.float64)).ravel())
@@ -222,7 +237,7 @@ class PDEConfig:
     gaussian_kernel: bool = False
     kernel_sigma: float = 0.02
     snapshot_interval: int = 50
-    # --- TPU-native additions -------------------------------------------------
+    # --- additions beyond the reference -----------------------------------------
     diffusion_solver: str = "auto"           # 'auto'|'fft'|'dct'|'dense'|'identity'
     n_tracers: int = 1000
     tracer_window_time: float = 0.05         # IMEX_PDE_solver_class.py:238
@@ -253,9 +268,8 @@ class PDEConfig:
 
     @property
     def kmax(self) -> int:
-        # clamp to the rfft width: bins past L//2 are aliased mirrors, and
-        # an unclamped kmax would give the fused and XLA engines different
-        # fft_ri shapes (dft.rfft_ri_partial clamps the same way)
+        # clamp to the rfft width: bins past L//2 are aliased mirrors
+        # (dft.rfft_ri_partial clamps the same way)
         full = self.L // 2 + 1
         return min(self.fft_kmax, full) if self.fft_kmax is not None else full
 

@@ -11,8 +11,8 @@ pointwise (ρ₊−ρ₋)/(ρ₊+ρ₋) without a kernel, global scalar above th
 sentinel, else kernel smoothing of numerator and denominator.  The sentinel
 quirk is reproduced deliberately (SURVEY.md §2.4).
 
-The circular convolution runs as one MXU matmul by default (ops.dft); the
-rFFT path is the opt-in large-L mode.
+The circular convolution runs as one dense f32 matmul by default (ops.dft);
+the rFFT path is the opt-in large-L mode.
 """
 from __future__ import annotations
 
@@ -27,8 +27,7 @@ from hydrolim_tpu.ops.convolve import periodic_gaussian_kernel, reflect_gaussian
 
 class SmoothOp(NamedTuple):
     """Cached circular-convolution operator (exactly one of the three fields
-    is non-empty).  No complex dtypes anywhere — the TPU backend lacks
-    complex64."""
+    is non-empty); real arrays only."""
 
     kernel_rfft_ri: jnp.ndarray   # float32 (L//2+1, 2) — native-fft mode
     conv_mat: jnp.ndarray         # float32 (L, L)      — matmul mode

@@ -1,9 +1,9 @@
-"""Batched on-device estimator suite (VERDICT r1 #4).
+"""Batched on-device estimator suite.
 
 Round 1 computed the estimator layer as a host-side Python loop over
 replicas (``frames_to_out`` + NumPy per replica) — fine at the reference's
-3-10 runs, but it dominates wall time for the 10³+-replica grids the TPU
-makes cheap.  This module evaluates the same five estimators
+3-10 runs, but it dominates wall time for the 10³+-replica grids one
+device advances together.  This module evaluates the same five estimators
 (``..._sweep_beta.py:123-229,500-525``) for EVERY replica in one jitted
 program over the batch-leading frame arrays, with the measurement window
 realized as a per-replica frame mask instead of Python slicing:

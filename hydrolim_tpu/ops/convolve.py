@@ -1,6 +1,6 @@
 """Smoothing convolutions for the magnetization field.
 
-TPU-native replacements for the reference's two smoothing paths
+Device replacements for the reference's two smoothing paths
 (PARTICLE_solver_CLASS.py:223-238):
 
 - periodic: FFT convolution with a cached torus Gaussian kernel,
@@ -83,7 +83,7 @@ def reflect_gaussian_filter(x: jnp.ndarray, sigma_grid: float,
 
     Narrow kernels run as a VALID convolution over a reflect-padded signal;
     wide kernels (radius > L/4) run as ONE (…, 2L)·(2L, 2L) circulant matmul
-    on the even extension — MXU-friendly and exactly equivalent (the reflect
+    on the even extension — exactly equivalent (the reflect
     extension is 2L-periodic)."""
     w_np = gaussian_filter_weights(sigma_grid, truncate)
     radius = (len(w_np) - 1) // 2

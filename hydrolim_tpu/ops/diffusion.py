@@ -2,8 +2,8 @@
 
 The reference builds ``A = I − γ·dt·D/dx²`` as a sparse CSR matrix and calls
 ``scipy.sparse.linalg.spsolve`` twice per step
-(IMEX_PDE_solver_class.py:68-82, 189-190).  Sparse triangular solves are
-hostile to TPU; the operator here is constant-coefficient tridiagonal
+(IMEX_PDE_solver_class.py:68-82, 189-190).  Sparse triangular solves do
+not batch; the operator here is constant-coefficient tridiagonal
 (+periodic corners or Neumann mirrors), so we diagonalize it instead:
 
 - ``periodic``: circulant ⇒ exact solve in rFFT space (one rfft/irfft pair).
@@ -12,7 +12,7 @@ hostile to TPU; the operator here is constant-coefficient tridiagonal
   even extension ⇒ exact solve via rFFT of the even extension (a DCT-I
   diagonalization).
 - ``dense``: precompute ``A⁻¹`` on host (float64) and apply it as a dense
-  matmul — MXU-friendly and trivially batched; used for cross-validation.
+  matmul — trivially batched; used for cross-validation.
 
 All solves broadcast over leading batch dims and are vmappable in ``γ``.
 """
@@ -124,7 +124,14 @@ def diffusion_solve(op: DiffusionSolveOp, rho: jnp.ndarray,
                                 axis=-1)
         else:
             x = rho
-        return banded_circular_conv(x, op.denom)[..., :rho.shape[-1]]
+        y = banded_circular_conv(x, op.denom)
+        # The periodic solve has unit DC gain, so it conserves sum(x) (on
+        # the even extension for Neumann).  f32 tap sums drop the kernel's
+        # sub-ulp tail terms instead: ~-4e-8 of the mass per solve on the
+        # GPU, a drift that compounds over thousands of steps.  Restore it.
+        y = y * (jnp.sum(x, axis=-1, keepdims=True)
+                 / jnp.maximum(jnp.sum(y, axis=-1, keepdims=True), 1e-30))
+        return y[..., :rho.shape[-1]]
     if kind == "fft":
         L = rho.shape[-1]
         return dft.irfft_ri(dft.rfft_ri(rho) / op.denom[..., :, None], n=L)

@@ -1,6 +1,6 @@
 """Occupancy / density scatter-adds.
 
-TPU-native replacement for the reference's ``np.bincount`` occupancy builders
+Device replacement for the reference's ``np.bincount`` occupancy builders
 (PARTICLE_solver_CLASS.py:248-252, :205-206): masked scatter-adds with static
 output length (alive-mask instead of variable-length position arrays).
 """

@@ -1,10 +1,10 @@
 """Multi-host initialization (SURVEY.md §5 distributed-backend row).
 
-Single-host multi-chip needs nothing: ``make_mesh`` spans the local devices
-and XLA collectives ride ICI.  For multi-host (multi-slice) runs, call
-:func:`initialize_multihost` once per process before any JAX computation;
-the sweep batch then spans ``jax.device_count()`` global devices and
-cross-host reductions ride DCN.
+Single-host multi-device needs nothing: ``make_mesh`` spans the local
+devices and XLA collectives ride the devices' interconnect.  For multi-host
+runs, call :func:`initialize_multihost` once per process before any JAX
+computation; the sweep batch then spans ``jax.device_count()`` global
+devices and cross-host reductions ride the network.
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ axis sharded over a ``jax.sharding.Mesh``:
 - axis ``'sweep'``: the flattened (β-grid × replicas) batch — pure data
   parallelism, zero communication during stepping,
 - axis ``'part'``: the particle buffer axis — the global-magnetization
-  reduction ``Σσ/N`` becomes an XLA ``psum`` over ICI, inserted automatically
+  reduction ``Σσ/N`` becomes an XLA ``psum`` across devices, inserted automatically
   from the sharding annotations (the framework's particle-axis parallelism),
 - axis ``'space'`` (PDE): the lattice axis of ρ± — the dense
   circulant/diffusion matmuls and ±1-site rolls induce collectives
@@ -35,24 +35,30 @@ def _factor2(n: int) -> Tuple[int, int]:
 
 
 def select_devices(n_devices: Optional[int] = None):
-    """Default-platform devices, falling back to the (virtual multi-device)
-    CPU platform only when the default backend is unavailable or has fewer
-    than ``n_devices`` — so real accelerators are never silently bypassed,
-    and single-chip machines can still validate multi-chip shardings.
-    (Callers that must never touch a possibly-broken default backend — the
-    driver dryrun — pass explicit ``devices`` instead.)"""
-    try:
-        devices = jax.devices()
-    except RuntimeError:
-        devices = []
-    if n_devices is not None and len(devices) < n_devices:
-        try:
-            cpus = jax.devices("cpu")
-        except RuntimeError:
-            cpus = []
-        if len(cpus) >= n_devices:
-            devices = cpus
-    return devices
+    """The first ``n_devices`` devices of the default platform (all of them
+    when None).  Raises ValueError when the platform has fewer: a mesh is
+    never quietly built elsewhere.  A virtual CPU mesh is built by passing
+    ``devices=jax.devices("cpu")`` to the mesh constructors."""
+    devices = jax.devices()
+    if n_devices is None:
+        return devices
+    if len(devices) < n_devices:
+        raise ValueError(
+            f"need {n_devices} devices, the default platform "
+            f"'{devices[0].platform}' has {len(devices)}")
+    return devices[:n_devices]
+
+
+def take_devices(devices, n_devices: Optional[int]):
+    """``devices`` (default: :func:`select_devices`) cut to ``n_devices``;
+    raises ValueError when there are fewer."""
+    if devices is None:
+        return select_devices(n_devices)
+    if n_devices is None:
+        return list(devices)
+    if len(devices) < n_devices:
+        raise ValueError(f"need {n_devices} devices, got {len(devices)}")
+    return list(devices)[:n_devices]
 
 
 def make_mesh(n_devices: Optional[int] = None,
@@ -60,12 +66,7 @@ def make_mesh(n_devices: Optional[int] = None,
               devices=None) -> Mesh:
     """2-D mesh over the available devices (most-square factorization);
     device selection per :func:`select_devices`."""
-    if devices is None:
-        devices = select_devices(n_devices)
-    if n_devices is not None:
-        assert len(devices) >= n_devices, (
-            f"need {n_devices} devices, have {len(devices)}")
-        devices = devices[:n_devices]
+    devices = take_devices(devices, n_devices)
     a, b = _factor2(len(devices))
     dev_array = np.asarray(devices).reshape(a, b)
     return Mesh(dev_array, axis_names)
@@ -76,13 +77,7 @@ def sweep_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
     right default for the user-facing sweep drivers (the flattened
     (β × replicas) batch shards across every device; no particle/lattice
     axis is split, so stepping needs zero communication)."""
-    if devices is None:
-        devices = select_devices(n_devices)
-    if n_devices is not None:
-        assert len(devices) >= n_devices, (
-            f"need {n_devices} devices, have {len(devices)}")
-        devices = devices[:n_devices]
-    return Mesh(np.asarray(devices), ("sweep",))
+    return Mesh(np.asarray(take_devices(devices, n_devices)), ("sweep",))
 
 
 def resolve_sweep_mesh(mesh: Optional[Mesh],

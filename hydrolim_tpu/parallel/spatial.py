@@ -5,8 +5,8 @@ sequence/context parallelism is sharding the lattice axis x.  The
 site-centric engines are built from ±1-site rolls, elementwise selects and
 small-slot-axis sorts, so under a ``NamedSharding`` that splits L over a
 'space' mesh axis the XLA SPMD partitioner lowers every roll to a
-**halo exchange** (collective-permute between lattice-neighbour devices over
-ICI) and every global reduction (global m, Var, mass) to an all-reduce —
+**halo exchange** (collective-permute between lattice-neighbour devices)
+and every global reduction (global m, Var, mass) to an all-reduce —
 no hand-written communication, no all-gathers on the hot path
 (tests/test_spatial_sharding.py asserts the compiled HLO: collective-permute
 present, all-gather absent).
@@ -33,16 +33,12 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 def space_mesh(n_devices: Optional[int] = None, devices=None,
                axis_name: str = "space") -> Mesh:
-    """1-D mesh over the lattice axis; device selection shared with
-    :func:`parallel.mesh.select_devices` (default platform first, CPU
-    fallback only when it cannot satisfy ``n_devices``)."""
-    from hydrolim_tpu.parallel.mesh import select_devices
+    """1-D mesh over the lattice axis; devices as in
+    :func:`parallel.mesh.select_devices` (raises when there are fewer than
+    ``n_devices``)."""
+    from hydrolim_tpu.parallel.mesh import take_devices
 
-    if devices is None:
-        devices = select_devices(n_devices)
-    if n_devices is not None:
-        devices = devices[:n_devices]
-    return Mesh(np.asarray(devices), (axis_name,))
+    return Mesh(np.asarray(take_devices(devices, n_devices)), (axis_name,))
 
 
 def space_sharding(mesh: Mesh, *, batched: bool = True, slots: bool = False,
@@ -62,17 +58,11 @@ def grid_mesh(n_sweep: int, n_space: int, devices=None) -> Mesh:
     with lattice-axis spatial sharding — the scaling recipe for workloads
     that are both ensemble-wide AND too long for one chip's share of the
     lattice.  Device order is row-major: lattice-neighbour shards sit on
-    adjacent devices (ICI neighbours on a pod), replica groups stride."""
-    from hydrolim_tpu.parallel.mesh import select_devices
+    adjacent devices, replica groups stride."""
+    from hydrolim_tpu.parallel.mesh import take_devices
 
-    n = n_sweep * n_space
-    if devices is None:
-        devices = select_devices(n)
-    if len(devices) < n:
-        raise ValueError(
-            f"grid_mesh({n_sweep}, {n_space}) needs {n} devices, "
-            f"have {len(devices)}")
-    return Mesh(np.asarray(devices[:n]).reshape(n_sweep, n_space),
+    devices = take_devices(devices, n_sweep * n_space)
+    return Mesh(np.asarray(devices).reshape(n_sweep, n_space),
                 ("sweep", "space"))
 
 

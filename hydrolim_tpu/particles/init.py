@@ -119,7 +119,7 @@ def init_poisson(config: ParticleConfig, key: jnp.ndarray,
     else:
         kp, km = cp, cm
 
-    # Buffer-overflow guard (ADVICE r1): if the Poisson total exceeds n_buf,
+    # Buffer-overflow guard: if the Poisson total exceeds n_buf,
     # jnp.repeat's total_repeat_length truncation would drop particles from
     # the high-x end specifically (sites materialize in index order) — a
     # spatially biased loss.  Thin every site binomially to an expected

@@ -1,6 +1,6 @@
 """Site-centric lattice-gas engine (K = 1 exclusion).
 
-For unit site capacity the TPU-optimal state is per-site, not per-particle:
+For unit site capacity the efficient state is per-site, not per-particle:
 ``occ ∈ {0, +1, −1}^L`` (0 = empty, ±1 = particle spin).  Every event channel
 of the reference generator (PARTICLE_solver_CLASS.py:259-351 — CW flips,
 symmetric diffusion hops, σ-directed active hops, exclusion) becomes pure

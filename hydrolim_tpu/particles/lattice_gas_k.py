@@ -5,8 +5,8 @@ reference's flagship single run uses ``site_capacity = 3``
 (PARTICLE_solver_BIOLOGY_EXCLUSION.py:71,90) and fell back to the
 particle-centric τ-leap at ~30× lower throughput.  This module generalizes
 the site-centric state to per-site **slots**: ``slots ∈ {0, ±1}^(K, L)``
-(slot axis first — K sublanes × L lanes is the TPU-native layout; the K = 1
-engine's occ^L is the squeezed special case).
+(slot axis first, lattice axis last; the K = 1 engine's occ^L is the
+squeezed special case).
 
 Event channels (the same generator as the reference rate assembly,
 PARTICLE_solver_CLASS.py:259-351, restricted to the hop/flip channels — no
@@ -56,8 +56,7 @@ def _roll(x, shift):
 
 def lgk_step(config: ParticleConfig, params: ParticleParams,
              mfield_op: MFieldOp, slots: jnp.ndarray, key: jnp.ndarray,
-             dt: float, is_anchor: Optional[jnp.ndarray] = None,
-             _inject=None):
+             dt: float, is_anchor: Optional[jnp.ndarray] = None):
     """One synchronous Δt step on the (K, L) slot field.
 
     Slot values: 0 = empty, ±1 = unbound particle (sign = spin), ±2 = bound
@@ -65,11 +64,6 @@ def lgk_step(config: ParticleConfig, params: ParticleParams,
     runs: bind (σ=−1, unbound, on anchor, occ<K incl. self — the K=1 quirk),
     unbind, anchored immobilization and absorbing exit
     (PARTICLE_solver_CLASS.py:307-312, 342-348).
-
-    ``_inject``: optional ``(u, prio)`` pair — (K, L) float32 uniforms and
-    (K, L) uint32 unique slot priorities replacing the internal draws, used
-    by the CPU kernel-logic suite to compare this engine against the fused
-    Pallas exclusion kernel at matched draws (VERDICT r3 #3).
 
     Returns ``(slots_new, (acc_right_src, acc_left_src, flipped, new_k),
     exiting)`` — movement/flip flags in the source layout, the destination
@@ -151,8 +145,7 @@ def lgk_step(config: ParticleConfig, params: ParticleParams,
     t4 = t3 + rate_bind * dt
     t5 = t4 + rate_unbind * dt
     t6 = t5 + rate_exit * dt
-    u = jax.random.uniform(k_ev, slots.shape, jnp.float32) \
-        if _inject is None else _inject[0]
+    u = jax.random.uniform(k_ev, slots.shape, jnp.float32)
     ev_left = u < t1
     ev_right = (u >= t1) & (u < t2)
     ev_flip = (u >= t2) & (u < t3)
@@ -163,12 +156,9 @@ def lgk_step(config: ParticleConfig, params: ParticleParams,
     # unique random priorities per slot (high bits random, low bits slot id)
     flat_n = K * L
     assert flat_n < (1 << 17), "slot priority pack supports K*L < 131072"
-    if _inject is None:
-        bits = jax.random.bits(k_prio, slots.shape, jnp.uint32)
-        slot_id = jnp.arange(flat_n, dtype=jnp.uint32).reshape(K, L)
-        prio = (bits & jnp.uint32(0xFFFE0000)) | slot_id
-    else:
-        prio = _inject[1]
+    bits = jax.random.bits(k_prio, slots.shape, jnp.uint32)
+    slot_id = jnp.arange(flat_n, dtype=jnp.uint32).reshape(K, L)
+    prio = (bits & jnp.uint32(0xFFFE0000)) | slot_id
 
     right_prio = jnp.where(ev_right, prio, _UINT_MAX)
     left_prio = jnp.where(ev_left, prio, _UINT_MAX)
@@ -176,7 +166,7 @@ def lgk_step(config: ParticleConfig, params: ParticleParams,
     # candidates into site j: right-movers of j−1, left-movers of j+1.
     # Admission = the free-capacity smallest priorities; computed as K
     # rounds of a cross-slot min (decision-identical to a sort-and-threshold
-    # under unique priorities, ~2x cheaper than jnp.sort on TPU)
+    # under unique priorities, and cheaper than a jnp.sort)
     cand = jnp.concatenate([_roll(right_prio, 1), _roll(left_prio, -1)],
                            axis=-2)                      # (…, 2K, L)
     free = (K - occ_tot).astype(jnp.int32)               # (…, L)

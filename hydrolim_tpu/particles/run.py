@@ -159,9 +159,8 @@ def _run_scan_range(config: ParticleConfig, params: ParticleParams,
 
     ``frame_lo`` is a *traced* scalar (only the chunk ``length`` is a
     static arg), so every interior chunk of a checkpointed run reuses ONE
-    compiled program — remote TPU compiles are minutes each, so a
-    per-chunk static start index would have recompiled ~n_frames/chunk
-    times."""
+    compiled program — a per-chunk static start index would have
+    recompiled ~n_frames/chunk times."""
     statics = statics_builder(config)
     rec = lambda st: _record_frame(config, statics, st, record_pos,
                                    record_fft)

@@ -15,8 +15,10 @@ import jax
 import numpy as np
 
 from hydrolim_tpu.core.config import (
+    PARTICLE_ENGINES,
     ParticleConfig,
     auto_dt,
+    check_engine,
     make_particle_params,
 )
 from hydrolim_tpu.ops.dft import ri_to_complex as _ri_to_complex
@@ -80,7 +82,7 @@ class ParticleSystem:
         k_off: float = 0.01,
         suppress_flip_when_bound: bool = True,
         k_exit: float = 0,
-        # --- TPU-native extensions ---
+        # --- extensions beyond the reference ---
         active_model: str = "plus_forward",
         dt: Optional[float] = None,
         max_event_prob: float = 0.10,
@@ -199,14 +201,9 @@ class ParticleSystem:
         N particles tagged as identity tracers — same law, same out schema,
         ~30-50× the single-run throughput at the flagship K=3 config.
         Requires exclusion and no anchors (bind/exit channels route to the
-        particle engine).  ``engine='pallas'`` additionally routes to the
-        fused Pallas slot kernel on TPU (sweeps.fast_exclusion; identity
-        rides the signed slot payloads) and falls back to the XLA slot
-        engine off-TPU."""
-        if engine in ("lattice_gas", "pallas"):
-            return self._run_lattice_gas(
-                T, obs_dt, record_fft, record_var,
-                kernel="auto" if engine == "pallas" else "xla")
+        particle engine)."""
+        if check_engine(engine, PARTICLE_ENGINES) == "lattice_gas":
+            return self._run_lattice_gas(T, obs_dt, record_fft, record_var)
         # record_fft gates the O(L^2) matmul-DFT on device, not just the
         # host-side slicing below.  Deviation from a reference quirk: the
         # reference computes var only inside its record_fft branch (so
@@ -226,16 +223,15 @@ class ParticleSystem:
         ``chunk_frames`` frames with an atomic checkpoint (frames + carry
         state incl. the PRNG key) after each — a killed run resumes from
         the newest complete chunk and the stitched ``out`` dict is
-        bit-identical to an uninterrupted :meth:`run`.  TPU-native
+        bit-identical to an uninterrupted :meth:`run`.  An
         extension (the reference only caches completed sweeps); see
         utils/checkpoint.py.  ``engine='lattice_gas'`` checkpoints the
         slot engine instead (same constraint set as :meth:`run`)."""
-        if engine == "lattice_gas":
+        if check_engine(engine, PARTICLE_ENGINES) == "lattice_gas":
             return self._run_lattice_gas(
-                T, obs_dt, record_fft, record_var, kernel="xla",
+                T, obs_dt, record_fft, record_var,
                 ckpt=dict(ckpt_dir=ckpt_dir, chunk_frames=chunk_frames,
                           resume=resume))
-        assert engine == "particle", engine
         from hydrolim_tpu.utils.checkpoint import run_particles_checkpointed
 
         res = run_particles_checkpointed(
@@ -287,13 +283,12 @@ class ParticleSystem:
         return out
 
     def _run_lattice_gas(self, T: float, obs_dt: float, record_fft: bool,
-                         record_var: bool, kernel: str = "xla",
+                         record_var: bool,
                          ckpt: Optional[Dict[str, Any]] = None
                          ) -> Dict[str, Any]:
         """Single run on the slot engine, full out-schema parity: every
         particle is a tagged tracer, so pos_list/pos_frames carry exact
-        identities (displacement estimators work unchanged).
-        ``kernel='auto'`` uses the fused Pallas slot kernel on TPU."""
+        identities (displacement estimators work unchanged)."""
         from hydrolim_tpu.particles.lattice_gas_k import run_lattice_gas_k
 
         config = self.config
@@ -312,19 +307,8 @@ class ParticleSystem:
                 run_lattice_gas_k_checkpointed,
             )
 
-            assert kernel == "xla", "checkpointing uses the XLA slot engine"
             runner = functools.partial(run_lattice_gas_k_checkpointed,
                                        **ckpt)
-        elif kernel != "xla":
-            from hydrolim_tpu.sweeps.fast_exclusion import (
-                is_pallas_exclusion_path,
-                run_exclusion_sweep,
-            )
-
-            assert is_pallas_exclusion_path(config), (
-                "engine='pallas' requires the fused-kernel configuration "
-                "class (K<=8, no anchors/crowding, default flip rate)")
-            runner = functools.partial(run_exclusion_sweep, engine=kernel)
         else:
             runner = run_lattice_gas_k
         frames, _slots = jax.tree.map(np.asarray, runner(

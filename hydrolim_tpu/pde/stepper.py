@@ -112,7 +112,7 @@ def pde_step(config: PDEConfig, params: PDEParams, ops: PDEOps,
     correct field is m(ρ(tₙ)) — computed here if not supplied.  ``pde_solve``
     passes the one per-iteration field shared with the recorder and the
     tracer update (the main fusion of the full-solve hot path; round-1 used
-    post-diffusion densities, an undocumented O(dt) deviation — ADVICE r1)."""
+    post-diffusion densities, an undocumented O(dt) deviation)."""
     dt, dx, bc = config.dt, config.dx, config.bc
     sop = _solve_op(config, params, ops)
     kind = config.solver_kind
@@ -195,18 +195,13 @@ class PDESolveResult(NamedTuple):
 
 
 def _tracer_update(config: PDEConfig, params: PDEParams, m_field,
-                   tr: TracerState, key, n: jnp.ndarray, _inject=None):
+                   tr: TracerState, key, n: jnp.ndarray):
     """CW spin flips + Euler–Maruyama advance + windowed v/D (:256-287).
-
-    ``_inject``: optional ``(flip_u, z)`` — (n_tracers,) float32 flip
-    uniforms and standard-normal draws replacing the internal sampling,
-    used by the CPU kernel-logic suite to compare this path against the
-    fused Pallas PDE kernel at matched draws (VERDICT r3 #3).
 
     ``m_field`` is the per-iteration magnetization shared with the recorder
     and the IMEX step (one smoothing per iteration instead of three).
 
-    Windowing note (intentional deviation, ADVICE r1): the slot about to be
+    Windowing note (intentional deviation): the slot about to be
     overwritten, ``hist[n % window]``, holds ``u_{n+1−window}`` (written
     ``window`` iterations ago), so reading it *before* the write gives a
     displacement spanning exactly ``window`` steps — matching the
@@ -221,14 +216,12 @@ def _tracer_update(config: PDEConfig, params: PDEParams, m_field,
     idx = (tr.pos / dx).astype(jnp.int32) % L
     m_loc = m_field[idx]
     rate = cw_rate(tr.spin.astype(jnp.float32), m_loc, params.beta)
-    flip_u = jax.random.uniform(k_flip, tr.spin.shape) \
-        if _inject is None else _inject[0]
+    flip_u = jax.random.uniform(k_flip, tr.spin.shape)
     flip = flip_u < rate * dt
     spin = jnp.where(flip, -tr.spin, tr.spin)
 
     v_loc = params.lam * spin.astype(jnp.float32)
-    z = jax.random.normal(k_noise, tr.pos.shape) \
-        if _inject is None else _inject[1]
+    z = jax.random.normal(k_noise, tr.pos.shape)
     noise = jnp.sqrt(2.0 * params.gamma * dt) * z
     unwrapped = tr.unwrapped + v_loc * dt + noise
     pos = unwrapped % config.xlim

@@ -7,15 +7,18 @@ module) keep the same names and output schema.
 """
 from __future__ import annotations
 
-import dataclasses
 from pathlib import Path
 from typing import Any, Dict, Optional
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
-from hydrolim_tpu.core.config import PDEConfig, make_pde_params
+from hydrolim_tpu.core.config import (
+    PDE_ENGINES,
+    PDEConfig,
+    check_engine,
+    make_pde_params,
+)
 from hydrolim_tpu.pde.stepper import (
     PDEOps,
     PDESolveResult,
@@ -41,7 +44,7 @@ class IMEXPDE:
         snapshot_interval: int = 50,
         outdir: str = "IMEX_output",
         seed: Optional[int] = None,
-        # --- TPU-native extensions ---
+        # --- extensions beyond the reference ---
         diffusion_solver: str = "auto",
         fft_kmax: Optional[int] = None,
         legacy_double_diffusion: bool = False,
@@ -120,41 +123,10 @@ class IMEXPDE:
             n_tracers=n_tracers)
 
     def solve(self, engine: str = "xla") -> None:
-        """Advance the full T horizon.
-
-        ``engine='pallas'`` runs the fused multi-step Pallas kernel
-        (pde/fast_solve.py) when the configuration qualifies — identical
-        fields and m/Var/v_eff/D_eff records; the rfft series is per-step
-        when ``fft_kmax ≤ 62`` and at SNAPSHOT cadence otherwise (chunk
-        starts + final state, intermediate steps NaN — pde_solve_fused
-        warns), and the tracer RNG stream is statistically equivalent,
-        not bitwise.  ``'auto'`` picks the fused kernel only when it also
-        keeps the per-step spectra cadence (``fft_kmax ≤ 62``); wider
-        kmax — including this facade's full-rfft default — routes to XLA,
-        so 'auto' never changes the fft cadence.  ``'xla'`` (default)
-        keeps the complete per-step spectral record at any kmax."""
+        """Advance the full T horizon (``engine='xla'``, the one engine),
+        keeping the complete per-step spectral record."""
+        check_engine(engine, PDE_ENGINES)
         self.key, sub = jax.random.split(self.key)
-        if engine != "xla":
-            from hydrolim_tpu.pde.fast_solve import (
-                is_fused_pde_path,
-                pde_solve_fused,
-            )
-
-            cfg = self.config if self.config.n_tracers == self.n_tracers \
-                else dataclasses.replace(self.config,
-                                         n_tracers=self.n_tracers)
-            if is_fused_pde_path(cfg, np.asarray([float(self.params.gamma)])):
-                batch = lambda x: jnp.asarray(x)[None]
-                res = pde_solve_fused(
-                    cfg, jax.tree.map(batch, self.params), self.ops,
-                    batch(self.rho_p), batch(self.rho_m),
-                    jax.tree.map(batch, self.tracers), sub, engine=engine)
-                self._result = jax.device_get(
-                    jax.tree.map(lambda x: x[0], res))
-                return
-            assert engine == "auto", (
-                "engine='pallas' requires the fused-kernel configuration "
-                "class (see pde/fast_solve.is_fused_pde_path)")
         self._result = jax.device_get(pde_solve(
             self.config, self.params, self.ops, self.rho_p, self.rho_m,
             self.tracers, sub))
@@ -165,8 +137,8 @@ class IMEXPDE:
         chunks of ``chunk_blocks`` blocks with an atomic checkpoint (block
         records + carry incl. tracer state and PRNG key) after each — a
         killed solve resumes from the newest complete chunk, bit-identical
-        to an uninterrupted :meth:`solve`.  TPU-native extension; see
-        utils/checkpoint.py."""
+        to an uninterrupted :meth:`solve`.  An extension beyond the
+        reference; see utils/checkpoint.py."""
         from hydrolim_tpu.utils.checkpoint import pde_solve_checkpointed
 
         self.key, sub = jax.random.split(self.key)

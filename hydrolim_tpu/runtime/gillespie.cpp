@@ -1,6 +1,6 @@
 // Exact event-driven Gillespie (CTMC) engine — native validation oracle.
 //
-// The TPU framework's particle engine is a fixed-Δt synchronous τ-leap
+// The framework's particle engine is a fixed-Δt synchronous τ-leap
 // approximation of the continuous-time Markov chain defined by the
 // reference's per-particle rate functions (PARTICLE_solver_CLASS.py:259-351,
 // see hydrolim_tpu/particles/stepper.py).  This C++ engine samples the SAME

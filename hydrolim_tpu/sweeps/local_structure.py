@@ -13,6 +13,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from hydrolim_tpu.core.config import PARTICLE_ENGINES, check_engine
 from hydrolim_tpu.observables.structure import extract_structure_observables_from_out
 from hydrolim_tpu.sweeps.beta_sweep import (
     make_exp_gradient,
@@ -81,13 +82,12 @@ def sweep_beta_structure_ensemble(beta, n_runs: int, ps_kwargs: Dict,
 
 
 def _lattice_gas_outs(beta_values, n_runs, ps_kwargs, init_kwargs,
-                      run_kwargs, seed, kernel: str = "xla",
+                      run_kwargs, seed,
                       n_devices: Optional[int] = None, ckpt_dir=None):
     """Run the (β × replicas) grid on the site-centric lattice-gas engine
     (K=1 occ field, or the K>1 slot engine) and return reference-schema out
-    dicts per replica.  ``kernel='auto'`` routes supported configurations to
-    the fused Pallas slot kernel on TPU (structure observables need no
-    particle identity, so n_tracers=0).  ``ckpt_dir=`` routes the grid
+    dicts per replica (structure observables need no particle identity,
+    so no tracers are tagged).  ``ckpt_dir=`` routes the grid
     through the checkpointed runners (utils.checkpoint) for mid-run
     preemption safety — XLA engines; composes with ``n_devices=`` (the
     resumed carry is re-placed with the run's sweep sharding)."""
@@ -101,17 +101,7 @@ def _lattice_gas_outs(beta_values, n_runs, ps_kwargs, init_kwargs,
 
     config = config_from_kwargs(ps_kwargs)
     assert config.exclusion, "lattice-gas engines require site_capacity"
-    if kernel != "xla":
-        from hydrolim_tpu.sweeps.fast_exclusion import (
-            is_pallas_exclusion_path,
-            run_exclusion_sweep,
-        )
-
-        assert is_pallas_exclusion_path(config), (
-            "pallas structure sweep requires the fused-kernel config class")
-        run_lattice_gas = functools.partial(run_exclusion_sweep,
-                                            engine=kernel)
-    elif config.K > 1:
+    if config.K > 1:
         run_lattice_gas = run_lattice_gas_k
     rho0_p = rho0_m = None
     if config.init == "poisson":
@@ -130,20 +120,12 @@ def _lattice_gas_outs(beta_values, n_runs, ps_kwargs, init_kwargs,
     mesh = resolve_sweep_mesh(None, n_devices)
     B = params.beta.shape[0]
     params, _Bp = pad_and_shard(mesh, params, B)
-    if kernel != "xla" and mesh is not None:
-        # b_real: R must derive from the true replica count, not the
-        # mesh-padded batch (fast_exclusion bit-identity contract)
-        run_lattice_gas = functools.partial(run_lattice_gas, mesh=mesh,
-                                            b_real=B)
     if ckpt_dir is not None:
         from hydrolim_tpu.utils.checkpoint import (
             run_lattice_gas_checkpointed,
             run_lattice_gas_k_checkpointed,
         )
 
-        assert kernel == "xla", (
-            "ckpt_dir requires the XLA lattice-gas engines (the fused "
-            "Pallas route runs uncheckpointed)")
         run_lattice_gas = functools.partial(
             run_lattice_gas_k_checkpointed if config.K > 1
             else run_lattice_gas_checkpointed, ckpt_dir=ckpt_dir, mesh=mesh)
@@ -195,16 +177,10 @@ def sweep_betas_for_structures(beta_values, n_runs_per_beta: int,
                               anchor_positions=None)
         init_kwargs = dict(rho0_plus=g[0], rho0_minus=g[1])
     beta_values = np.asarray(beta_values, dtype=float)
-    if ckpt_dir is not None:
-        assert engine in ("lattice_gas", "particle"), (
-            "ckpt_dir requires engine='lattice_gas' or 'particle' (the "
-            "fused Pallas route runs uncheckpointed)")
-    if engine in ("lattice_gas", "pallas"):
+    if check_engine(engine, PARTICLE_ENGINES) == "lattice_gas":
         config, out_for = _lattice_gas_outs(
             beta_values, n_runs_per_beta, ps_kwargs, init_kwargs,
-            run_kwargs, seed,
-            kernel="auto" if engine == "pallas" else "xla",
-            n_devices=n_devices, ckpt_dir=ckpt_dir)
+            run_kwargs, seed, n_devices=n_devices, ckpt_dir=ckpt_dir)
     else:
         config, res, _ = run_sweep_grid(beta_values, n_runs_per_beta,
                                         ps_kwargs, init_kwargs, run_kwargs,
@@ -216,7 +192,7 @@ def sweep_betas_for_structures(beta_values, n_runs_per_beta: int,
         per_run = []
         for r in range(n_runs_per_beta):
             i = b_idx * n_runs_per_beta + r
-            if engine in ("lattice_gas", "pallas"):
+            if engine == "lattice_gas":
                 out = out_for(i)
             else:
                 out = frames_to_out(res.frames, i, config, T, obs_dt,

@@ -16,6 +16,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from hydrolim_tpu.core.config import PARTICLE_ENGINES, check_engine
 from hydrolim_tpu.fit.veff_fit import derived_rates
 from hydrolim_tpu.sweeps.beta_sweep import DEFAULT_PS_KWARGS, sweep_over_betas
 from hydrolim_tpu.theory.blocking import v_eff_fit, v_pred_TASEP, v_pred_without_phi
@@ -47,7 +48,8 @@ def sweep_over_sigmas(sigma_values: Sequence[float], beta_values,
     ``<ckpt_dir>/sigma_<σ>``, so a kill mid-σ resumes from the newest
     complete chunk instead of restarting that σ's grid.  Works with
     ``engine='lattice_gas'`` and ``'particle'`` (the sweep_over_betas
-    ckpt contract; the fused Pallas route runs uncheckpointed)."""
+    ckpt contract)."""
+    check_engine(engine, PARTICLE_ENGINES)
     out = Path(outdir)
     out.mkdir(parents=True, exist_ok=True)
     beta_values = np.asarray(beta_values, dtype=float)

@@ -1,8 +1,8 @@
 """Mid-run checkpoint / resume for long particle runs (preemption-safe).
 
 The reference persists only *completed* sweep results (its ``run=True/False``
-npz flag pattern — covered by ``sweeps/persistence.py``).  On preemptible TPU
-fleets the unit of loss is the run **in flight**, so this module chunks the
+npz flag pattern — covered by ``sweeps/persistence.py``).  On preemptible
+machines the unit of loss is the run **in flight**, so this module chunks the
 observation-frame scan and checkpoints the scan carry (the full
 :class:`~hydrolim_tpu.particles.init.ParticleState`, including the threefry
 key and the exit log) plus each chunk's frame stack.  A resumed run restores
@@ -118,7 +118,7 @@ def _chunk_path(ckpt_dir: Path, i: int) -> Path:
 
 
 def _place(mesh, tree):
-    """Re-place a batched carry on the run's sweep mesh (VERDICT r4 #2):
+    """Re-place a batched carry on the run's sweep mesh:
     resume restores host arrays from npz, so the carry must be put back on
     the mesh — batch-leading leaves on the 'sweep' axis, everything else
     replicated (the same placement the uncheckpointed sharded run uses).
@@ -663,7 +663,7 @@ def run_pde_ensemble_checkpointed(config, params_b, ops, rho_p0, rho_m0,
     replica's carry (fields + tracer ring buffer + key) plus the chunk's
     raw block stacks, so a preempted sweep resumes mid-grid-program and the
     stitched result is bit-identical to the uninterrupted vmapped solve.
-    ``mesh=`` composes (VERDICT r4 #2): the restored host carry is
+    ``mesh=`` composes: the restored host carry is
     re-placed with the run's sweep sharding (:func:`_place`), so a
     preempted sharded sweep resumes sharded; trajectories stay
     bit-identical to the single-device run.

@@ -9,7 +9,10 @@ hazards.  These helpers are assertion passes enabled behind a debug flag
 - :func:`check_particle_invariants` — capacity ≤ K, positions in range,
   alive-count consistency, |m| ≤ 1,
 - :func:`check_density_invariants` — non-negative densities, finite mass,
-- :func:`nan_guard` — jax.debug.callback NaN check usable inside jit.
+- :func:`nan_guard` — jax.debug.callback NaN check usable inside jit,
+- :func:`matmuls_below_highest` — float matmuls and convolutions a program
+  runs below full f32 precision (on a GPU the default precision lets XLA
+  use TF32).
 """
 from __future__ import annotations
 
@@ -62,3 +65,36 @@ def nan_guard(x: jnp.ndarray, name: str = "array") -> jnp.ndarray:
 
     jax.debug.callback(_cb, x)
     return x
+
+
+def matmuls_below_highest(fn, *args, **kwargs) -> list:
+    """Float ``dot_general`` and ``conv_general_dilated`` ops in
+    ``fn(*args, **kwargs)``'s jaxpr (nested jits, scans and conds included)
+    whose precision is not HIGHEST on both operands — with
+    ``jax.default_matmul_precision`` at its default, such an op may run in
+    TF32 on the GPU.  Returns one description per op; empty means every
+    float matmul and convolution asks for full f32."""
+    from jax.extend import core as jex_core
+
+    highest = (jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST)
+    found = []
+
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name in ("dot_general", "conv_general_dilated"):
+                dtype = eqn.invars[0].aval.dtype
+                if (jnp.issubdtype(dtype, jnp.floating)
+                        and eqn.params.get("precision") != highest):
+                    found.append(f"{eqn.primitive.name} {dtype} "
+                                 f"{eqn.invars[0].aval.shape} x "
+                                 f"{eqn.invars[1].aval.shape} precision="
+                                 f"{eqn.params.get('precision')}")
+            for v in eqn.params.values():
+                for sub in (v if isinstance(v, (tuple, list)) else (v,)):
+                    if isinstance(sub, jex_core.ClosedJaxpr):
+                        walk(sub.jaxpr)
+                    elif isinstance(sub, jex_core.Jaxpr):
+                        walk(sub)
+
+    walk(jax.make_jaxpr(lambda *a: fn(*a, **kwargs))(*args).jaxpr)
+    return found

@@ -49,7 +49,7 @@ class PhaseTimer:
 
 
 @contextlib.contextmanager
-def trace(logdir: str = "/tmp/hydrolim_trace"):
+def trace(logdir: str = "hydrolim_trace"):
     """Capture a device trace viewable in TensorBoard/XProf."""
     jax.profiler.start_trace(logdir)
     try:
@@ -72,3 +72,21 @@ def throughput(step_fn: Callable[[], None], *, items_per_call: float,
     best = min(times)
     return {"items_per_sec": items_per_call / best, "best_s": best,
             "mean_s": sum(times) / len(times)}
+
+
+def card_name_and_power() -> str:
+    """``name, power.limit`` of each visible NVIDIA card, one per line, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them; "nvidia-smi not available" where it cannot be run.  A card
+    set below its maximum power runs slower under load, so every device
+    number is reported beside this line."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return "nvidia-smi not available"
+    return out.stdout.strip()

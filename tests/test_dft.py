@@ -76,22 +76,3 @@ def test_rfft_ri_partial_matches_full():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     # kmax clamped to the hermitian length
     assert dft.rfft_ri_partial(x, 1000).shape == (3, 49, 2)
-
-
-def test_rfft_ri_with_slab_matches_partial():
-    """The traced-slab form (slabs passed as jit arguments so a long-lived
-    compiled program doesn't bake a ~268 MB constant at default kmax and
-    large L — pde/fast_solve chunk spectra) is bit-equal to
-    rfft_ri_partial's closure form."""
-    import jax.numpy as jnp
-    import numpy as np
-    from hydrolim_tpu.ops import dft
-
-    rng = np.random.default_rng(3)
-    x = rng.random((4, 96)).astype(np.float32)
-    kmax = 9
-    C, S = dft._rfft_mats_partial(96, kmax)
-    got = np.asarray(dft.rfft_ri_with_slab(jnp.asarray(x),
-                                           jnp.asarray(C), jnp.asarray(S)))
-    want = np.asarray(dft.rfft_ri_partial(x, kmax))
-    np.testing.assert_array_equal(got, want)

@@ -55,7 +55,7 @@ def test_v_eff_recovers_drift():
 
 
 def test_v_eff_xlim_scaling():
-    """VERDICT r1 #8: the x grid must come from the config, not a hardcoded
+    """the x grid must come from the config, not a hardcoded
     [0, 1].  The same drifting bump on an xlim=2 domain moves 2x faster in
     physical units, and the boundary-safety window scales with the domain."""
     v = 0.004
@@ -98,7 +98,7 @@ def test_d_eff_from_positions_ballistic_free():
 
 def test_batched_matches_host():
     """The on-device batched estimator suite reproduces the host-side
-    per-replica estimators on a real ensemble (VERDICT r1 #4)."""
+    per-replica estimators on a real ensemble."""
     import jax
     from hydrolim_tpu.core.config import ParticleConfig
     from hydrolim_tpu.observables.batched import batched_estimates

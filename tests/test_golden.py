@@ -1,4 +1,4 @@
-"""Golden-value physics regression suite (VERDICT r2 #2).
+"""Golden-value physics regression suite.
 
 Fixed-seed, small-but-real configs that pin the SAMPLED physics of every
 engine so silent drift across rounds fails loudly.  Two kinds of pins:
@@ -36,8 +36,8 @@ from hydrolim_tpu.theory.meanfield import m_fixed_point
 # ---------------------------------------------------------------------------
 _GOLDEN = {
     # slot engine, K=3 shrunk flagship, seed 21, 64 runs (2026-08-18 r4;
-    # per-run sd 0.0558): tol = 4·SE ≈ 4.7% of the mean (VERDICT r3 #4
-    # asked ≤5%; the r3 6-run golden allowed ±17%)
+    # per-run sd 0.0558): tol = 4·SE ≈ 4.7% of the mean (≤5% asked;
+    # the earlier 6-run golden allowed ±17%)
     "p_block_k3": {"mean": 0.5964, "se": 0.0070, "tol": 0.028},
     # anchored slot engine, seed 33, 96 runs (2026-08-18 r4; per-run sd
     # 2.73): tol = 4·SE ≈ 12.9% of the mean (was ±41% at 6 runs)
@@ -137,7 +137,7 @@ def test_golden_cross_engine_exclusion_m_v_D():
     """Particle-centric τ-leap vs site-centric slot engine at K=1
     exclusion, 3 β points: |m|, tracer speed AND D_eff agree within error
     bars — two independent samplers of the same CTMC, both tracking ALL N
-    particles (VERDICT r2 #3 acceptance: slot-engine D_eff error bars
+    particles (slot-engine D_eff error bars
     match the particle engine at equal replica count)."""
     n_runs = 4
     m_p, m_s, v_p, v_s, D_p, D_s = _exclusion_engines_run(n_runs=n_runs)
@@ -247,8 +247,8 @@ def test_golden_anchored_exit_totals():
 def test_golden_critical_region_cross_engine_v():
     """β = 0.9 (sub-critical, m_β = 0): particle and PDE tracer velocities
     must BOTH be statistically zero and agree within an SE-derived bound
-    (VERDICT r3 weak #6 — the cross-engine table showed 0.0131 vs 0.0026
-    at β = 0.9 with no test bounding the discrepancy)."""
+    (the cross-engine table once showed 0.0131 vs 0.0026 at β = 0.9 with
+    no test bounding the discrepancy)."""
     from hydrolim_tpu.core.config import PDEConfig, make_pde_params
     from hydrolim_tpu.pde.init import pde_initialize
     from hydrolim_tpu.pde.stepper import build_pde_ops, pde_solve
@@ -297,9 +297,8 @@ def test_golden_critical_region_cross_engine_v():
 
 def test_golden_double_sweep_constants_refit(tmp_path):
     """(N, β) double sweep at the reference's own configuration refits the
-    frozen exclusion constants (VERDICT r3 #2).  CPU-scale pin: 19 N × 11 β
-    × 4 runs (~100 s; the TPU lane re-runs the same at full speed plus a
-    16-run version — VALIDATION.md round-4).  Measured CPU seed-0 refit:
+    frozen exclusion constants.  CPU-scale pin: 19 N × 11 β
+    × 4 runs (~100 s).  Measured CPU seed-0 refit:
     C0/C1/C2 = 1.2544/0.6193/0.1527 = 0.08σ/1.2σ/0.45σ of the fit errors.
     Bounds are 3× the COMBINED realization scatter (ours at this run count
     + the reference's own 4-run sampling noise, measured from independent
@@ -314,8 +313,8 @@ def test_golden_double_sweep_constants_refit(tmp_path):
     assert abs(res["C0"] - bl.C0) / bl.C0 < 0.03, (res["C0"], bl.C0)
     assert abs(res["C1"] - bl.C1) / bl.C1 < 0.08, (res["C1"], bl.C1)
     assert abs(res["C2"] - bl.C2) / bl.C2 < 0.08, (res["C2"], bl.C2)
-    # the refit must also report its own uncertainties (ADVICE-able
-    # consumers: the nsigma agreement analysis in VALIDATION.md)
+    # the refit must also report its own uncertainties (consumer: the
+    # nsigma agreement analysis in VALIDATION.md)
     assert 0 < res["C0_err"] < 0.05 and 0 < res["C2_err"] < 0.01
 
 

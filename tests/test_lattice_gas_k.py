@@ -100,8 +100,7 @@ def test_k1_special_case_matches_k1_engine():
 def test_lgk_matches_exact_ctmc_k3():
     """Flagship-style config (K=3, plus_forward active hops, exclusion
     pressure ρ=1.5): ensemble ⟨|m|(t)⟩ and the final density profile of the
-    slot engine agree with the exact CTMC oracle (VERDICT r1 #3 acceptance:
-    tau-leap-vs-CTMC agreement at K=3)."""
+    slot engine agree with the exact CTMC oracle (tau-leap-vs-CTMC agreement at K=3)."""
     from hydrolim_tpu.particles.init import init_particles
     from hydrolim_tpu.runtime.native import run_exact_gillespie
 

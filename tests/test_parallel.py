@@ -94,7 +94,7 @@ def _sweep_kwargs():
 
 
 def test_sweep_over_betas_n_devices_bit_equal(tmp_path):
-    """VERDICT r2 #1 acceptance: the flagship sweep driver runs on an
+    """the flagship sweep driver runs on an
     8-device mesh FROM THE PUBLIC API with observables matching the
     1-device run bit-for-bit (B=6 pads to 8 — exercises pad_batch)."""
     from hydrolim_tpu.sweeps.beta_sweep import sweep_over_betas
@@ -176,10 +176,9 @@ def test_graft_dryrun_multichip():
 
 
 def test_graft_dryrun_multichip_driver_env():
-    """Round-1 regression (MULTICHIP_r01.json rc=1): the dryrun must pass in
-    a fresh interpreter with NO XLA_FLAGS / JAX_PLATFORMS set — it has to
-    provision its own virtual CPU devices and never execute on the default
-    (possibly broken-TPU) backend."""
+    """The dryrun must pass in a fresh interpreter with NO XLA_FLAGS /
+    JAX_PLATFORMS set — it has to provision its own virtual CPU devices and
+    build its mesh from them, never from the default backend."""
     import os
     import subprocess
     import sys
@@ -229,42 +228,6 @@ def test_misaligned_chunk_mesh_bit_equal(tmp_path):
     for pa, pb in zip(a["per_N"], b["per_N"]):
         np.testing.assert_array_equal(np.asarray(pa["block_means"]),
                                       np.asarray(pb["block_means"]))
-
-
-def test_meshed_driver_passes_true_batch_to_fused_sweep(monkeypatch):
-    """The fused-kernel replica-row batch R must derive from the TRUE
-    replica count, not the mesh-padded batch: run_sweep_grid_lattice_gas
-    pads params to the mesh multiple BEFORE calling run_exclusion_sweep,
-    and _pick_r_batch(padded B) could differ from _pick_r_batch(real B) —
-    changing every PRNG draw shape vs the 1-device run.  The driver must
-    forward b_real."""
-    import hydrolim_tpu.sweeps.fast_exclusion as fx
-    from hydrolim_tpu.sweeps.beta_sweep import run_sweep_grid_lattice_gas
-
-    captured = {}
-
-    def fake(config, params_b, key, **kw):
-        captured["B_padded"] = int(params_b.beta.shape[0])
-        captured.update(kw)
-        raise _Stop
-
-    class _Stop(Exception):
-        pass
-
-    monkeypatch.setattr(fx, "run_exclusion_sweep", fake)
-    betas = np.linspace(0.0, 2.0, 3)
-    ps = dict(L=64, xlim=1, N=32, local_kernel_sigma=0.0, site_capacity=2,
-              periodic=True, rate_diffusion=0.5, rate_active=2.0,
-              minus_anchor=False, scale_rates=False,
-              active_model="bidirectional")
-    try:
-        run_sweep_grid_lattice_gas(betas, 2, ps, None,
-                                   dict(T=0.5, obs_dt=0.25), seed=1,
-                                   kernel="auto", n_devices=8)
-    except _Stop:
-        pass
-    assert captured["B_padded"] == 8        # 3 betas x 2 runs -> padded
-    assert captured["b_real"] == 6          # ...but R derives from 6
 
 
 def test_factor3_space_factor_divides_lattice():

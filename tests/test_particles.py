@@ -157,7 +157,7 @@ def test_bind_unbind_equilibrium():
 
 
 def test_init_poisson_overflow_unbiased():
-    """ADVICE r1: when the Poisson total exceeds the buffer, the loss must be
+    """when the Poisson total exceeds the buffer, the loss must be
     spatially uniform (binomial thinning), not a truncation of the high-x
     tail (site-ordered materialization)."""
     import jax
@@ -212,7 +212,7 @@ def test_auto_dt_bounds_custom_flip_rate():
 
 
 def test_auto_dt_probes_all_batch_betas():
-    """ADVICE r3: a custom rate maximized at a SMALLER beta (decreasing in
+    """a custom rate maximized at a SMALLER beta (decreasing in
     beta) must be bounded at the batch's low-beta replicas, not just at
     beta_max — else dt comes out too large for them."""
     import jax.numpy as jnp

@@ -286,3 +286,57 @@ def test_record_every_thins_per_step_series():
             np.asarray(getattr(full.records, name))[::5])
     np.testing.assert_array_equal(np.asarray(thin.rho_p),
                                   np.asarray(full.rho_p))
+
+
+def test_fetch_snapshots_false_drops_blocks_keeps_records():
+    """The sweep drivers' transfer opt-out: records identical, snapshot
+    blocks empty (they are ~0.4 GB at reference scale)."""
+    from hydrolim_tpu.sweeps.pde_sweeps import run_pde_ensemble
+
+    config = PDEConfig(L=64, T=0.1, dt=1e-3, gaussian_kernel=True,
+                       kernel_sigma=0.05, snapshot_interval=50, n_tracers=16)
+    kw = dict(gamma=0.2, lam=0.6, n_runs=2, seed=3, n_tracers=16)
+    full, fb = run_pde_ensemble(config, [0.5, 2.0], **kw)
+    thin, fb2 = run_pde_ensemble(config, [0.5, 2.0], fetch_snapshots=False,
+                                 **kw)
+    np.testing.assert_array_equal(fb, fb2)
+    np.testing.assert_array_equal(np.asarray(full.records.m_mean),
+                                  np.asarray(thin.records.m_mean))
+    np.testing.assert_array_equal(np.asarray(full.records.v_eff),
+                                  np.asarray(thin.records.v_eff))
+    np.testing.assert_array_equal(np.asarray(full.rho_p),
+                                  np.asarray(thin.rho_p))
+    assert full.snapshots.shape[1] > 0
+    assert thin.snapshots.shape[1] == 0 and thin.m_snapshots.shape[1] == 0
+
+
+def test_gamma_zero_ensemble_promotes_to_identity_solver():
+    """run_pde_ensemble must resolve diffusion_solver='auto' to 'identity'
+    at gamma=0 like the IMEXPDE facade (the 'magn' sweep variant would
+    otherwise pay two (L, L) DFT round-trips per step computing A^-1 = I,
+    and accumulate f32 round-trip noise)."""
+    import numpy as np
+
+    from hydrolim_tpu.core.config import PDEConfig
+    from hydrolim_tpu.sweeps.pde_sweeps import run_pde_ensemble
+
+    kw = dict(L=64, T=0.02, dt=1e-3, bc="periodic", gaussian_kernel=True,
+              kernel_sigma=0.05, snapshot_interval=10, n_tracers=8)
+    res_auto, _ = run_pde_ensemble(
+        PDEConfig(**kw), [1.5], gamma=0.0, lam=0.6, n_runs=2, seed=5,
+        n_tracers=8)
+    res_id, _ = run_pde_ensemble(
+        PDEConfig(**kw, diffusion_solver="identity"), [1.5], gamma=0.0,
+        lam=0.6, n_runs=2, seed=5, n_tracers=8)
+    # the promotion makes 'auto' the SAME program as explicit 'identity'
+    np.testing.assert_array_equal(np.asarray(res_auto.rho_p),
+                                  np.asarray(res_id.rho_p))
+    np.testing.assert_array_equal(np.asarray(res_auto.records.m_mean),
+                                  np.asarray(res_id.records.m_mean))
+    # and the spectral solve at gamma=0 is the identity up to f32 noise
+    res_fft, _ = run_pde_ensemble(
+        PDEConfig(**kw, diffusion_solver="fft"), [1.5], gamma=0.0,
+        lam=0.6, n_runs=2, seed=5, n_tracers=8)
+    np.testing.assert_allclose(np.asarray(res_fft.rho_p),
+                               np.asarray(res_id.rho_p), rtol=2e-4,
+                               atol=2e-6)

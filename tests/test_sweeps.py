@@ -168,56 +168,8 @@ def test_double_sweep_fused_plot_result_writes_fg_figures(tmp_path):
     assert (tmp_path / "g_fit.png").exists()
 
 
-def test_fast_meanfield_pallas_rejects_non_fixed_init():
-    """The fused mean-field runner simulates config.N particles with the
-    'fixed' init only; init='poisson' must raise on engine='pallas' and
-    route to XLA on engine='auto' (regression, round-3 review: the Pallas
-    path silently ran n_buf uniform particles)."""
-    import jax
-    import pytest as _pytest
-
-    from hydrolim_tpu.core.config import ParticleConfig
-    from hydrolim_tpu.sweeps.ensemble import broadcast_params
-    from hydrolim_tpu.sweeps.fast_meanfield import run_meanfield_sweep
-
-    config = ParticleConfig(L=32, N=20, init="poisson", scale_rates=False,
-                            local_kernel_sigma=0.0, periodic=True,
-                            site_capacity=None)
-    params = broadcast_params(config, beta=[0.5], rate_diffusion=0.5,
-                              rate_active=1.0, n_runs=1)
-    with _pytest.raises(ValueError, match="fixed"):
-        run_meanfield_sweep(config, params, jax.random.PRNGKey(0), T=0.4,
-                            obs_dt=0.2, dt=0.1, engine="pallas")
-    # auto-routing gate, independent of the actual default device: even
-    # ON a TPU, init='poisson' must route to XLA and init='fixed' to the
-    # kernel path
-    import hydrolim_tpu.sweeps.fast_exclusion as fx
-    from hydrolim_tpu.sweeps.fast_meanfield import resolve_meanfield_engine
-
-    orig = fx.default_device_is_tpu
-    fx.default_device_is_tpu = lambda: True
-    try:
-        assert resolve_meanfield_engine("auto", config) == "xla"
-        fixed_cfg = ParticleConfig(L=32, N=20, init="fixed",
-                                   scale_rates=False, local_kernel_sigma=0.0,
-                                   periodic=True, site_capacity=None)
-        assert resolve_meanfield_engine("auto", fixed_cfg) == "pallas"
-        # the kernel hard-codes periodic wrap+winding: non-periodic configs
-        # must route to XLA (blocked boundary moves) / raise on explicit
-        # pallas (round-3 kernel review)
-        open_cfg = ParticleConfig(L=32, N=20, init="fixed",
-                                  scale_rates=False, local_kernel_sigma=0.0,
-                                  periodic=False, site_capacity=None)
-        assert resolve_meanfield_engine("auto", open_cfg) == "xla"
-        with _pytest.raises(ValueError, match="periodic"):
-            resolve_meanfield_engine("pallas", open_cfg)
-    finally:
-        fx.default_device_is_tpu = orig
-    assert resolve_meanfield_engine("auto", config) == "xla"   # CPU default
-
-
 def test_make_exp_gradient_golden():
-    """VERDICT r3 #8: the vectorized IC factory must be numerically
+    """the vectorized IC factory must be numerically
     identical to the transcribed original (values frozen 2026-08-18 from
     the pre-refactor implementation; f64 ulp tolerance covers the
     reassociated anchor-peak sum)."""
